@@ -1,4 +1,4 @@
-"""Sparse regression + dimensionality reduction on the TPU.
+"""Sparse regression + dimensionality reduction on the default device.
 
 Demonstrates the model families beyond the reference's zoo: Lasso
 (fused ADMM, exact sparsity), ElasticNet, and PCA on the distributed

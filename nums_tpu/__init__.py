@@ -1,8 +1,8 @@
-"""nums_tpu: a TPU-native distributed NumPy.
+"""nums_tpu: a distributed NumPy on JAX.
 
-Rebuild of NumS (reference: merrymercy/nums) for TPU: arrays are
-grid-partitioned over a ``jax.sharding.Mesh``, ops are jitted XLA/Pallas
-programs, and ICI collectives replace the object store.
+Rebuild of NumS (reference: merrymercy/nums) on JAX: arrays are
+grid-partitioned over a ``jax.sharding.Mesh``, ops are jitted XLA
+programs, and device collectives replace the object store.
 
 Parity: ``nums/__init__.py:17-30``.
 """
@@ -16,7 +16,7 @@ from nums_tpu.core import application_manager
 def init():
     """Eagerly initialize the backend (parity: nums/__init__.py:26-30).
 
-    Bounded: a wedged device runtime raises RuntimeError after
+    Bounded: a device runtime that does not answer raises RuntimeError after
     ``NUMS_TPU_INIT_TIMEOUT_S`` (default 300 s) instead of hanging
     (``settings.ensure_runtime_alive``)."""
     return application_manager.instance()

@@ -38,14 +38,14 @@ HOST_FALLBACK = {
     # trim_zeros, bincount, hypergeometric.
     # (round 3 moved tri/index-builders/windows/sort_complex/poly/
     # real_if_close/insert(scalar-slice) onto the device as well.)
-    # roots/eig/eigvals: XLA has no general-eig kernel on TPU. Round 4
+    # roots/eig/eigvals: XLA has no general-eig kernel on accelerators. Round 4
     # moved them onto jax.pure_callback INSIDE the program (operands
     # stay fused in the XLA program; 1-2 scalar/bool syncs for the
     # data-dependent shape/dtype) — still listed because the eig math
     # itself runs in host LAPACK.
     "roots", "eig", "eigvals",
     "bytes",
-    # CPU-only domains (no TPU representation): datetime64 calendars,
+    # CPU-only domains (no device representation): datetime64 calendars,
     # np.matrix, nditer machinery, binary/text file parsing.
     "asmatrix", "busday_count", "busday_offset", "is_busday",
     "datetime_as_string", "datetime_data", "isnat", "nested_iters",

@@ -64,8 +64,7 @@ def _global_put(get_rows, gshape, sharding):
     )
 
 
-def ooc_put(backend, panel, fill=0.0, lane_pad_to=None,
-            augment_ones=False):
+def ooc_put(backend, panel, fill=0.0, augment_ones=False):
     """Host panel → device, ROW-SHARDED over the whole mesh (rows pad
     to the device-count multiple with ``fill``); single-device backends
     place it whole. Returns (device_panel, n_valid_rows). Streaming
@@ -79,24 +78,20 @@ def ooc_put(backend, panel, fill=0.0, lane_pad_to=None,
     reads 1/P of the panel from disk — the reference's cluster-wide
     aggregate-bandwidth execution, systems.py:156-191 there).
 
-    ``lane_pad_to``/``augment_ones``: serial-backend only —
-    ``augment_ones`` appends the GLM intercept column (all ones; serial
-    panels have no pad rows to mask) and ``lane_pad_to`` then zero-pads
-    the minor dim to this width, both HOST-side, so lane-aligned
-    kernels (the symmetric Pallas gram) consume the transferred buffer
-    with no on-device relayout (padding on device would cost more HBM
-    traffic than the kernel saves; see ops/pallas_gram.py)."""
+    ``augment_ones`` (serial backend only) appends the GLM intercept
+    column (all ones; serial panels have no pad rows to mask) on the
+    host, before the transfer."""
     import jax
 
     from nums_tpu.core import multiprocess as _mp
 
     mesh = getattr(backend, "mesh", None)
     rows = panel.shape[0]
-    if mesh is not None and (lane_pad_to is not None or augment_ones):
+    if mesh is not None and augment_ones:
         raise ValueError(
-            "lane_pad_to/augment_ones are serial-backend only (mesh "
-            "panels carry pad rows that an all-ones intercept column "
-            "would contaminate); pre-shape the panel instead"
+            "augment_ones is serial-backend only (mesh panels carry pad "
+            "rows that an all-ones intercept column would contaminate); "
+            "pre-shape the panel instead"
         )
     if mesh is None:
         if hasattr(panel, "full"):
@@ -104,12 +99,6 @@ def ooc_put(backend, panel, fill=0.0, lane_pad_to=None,
         if augment_ones:
             ones = np.ones((rows, 1), panel.dtype)
             panel = np.concatenate([panel, ones], axis=-1)
-        if lane_pad_to is not None and lane_pad_to > panel.shape[-1]:
-            cols = np.zeros(
-                tuple(panel.shape[:-1]) + (lane_pad_to - panel.shape[-1],),
-                panel.dtype,
-            )
-            panel = np.concatenate([panel, cols], axis=-1)
         return jax.device_put(panel), rows
     n_dev = int(np.prod(mesh.devices.shape))
     pad = (-rows) % n_dev
@@ -130,27 +119,6 @@ def ooc_put(backend, panel, fill=0.0, lane_pad_to=None,
         filler = np.full((pad,) + panel.shape[1:], fill, panel.dtype)
         panel = np.concatenate([panel, filler], axis=0)
     return jax.device_put(panel, sharding), rows
-
-
-def ooc_lane_width(backend, d, dtype):
-    """Accumulator width for a streamed gram-shaped fold: the 128
-    multiple when the symmetric Pallas kernel can take the panels
-    (serial backend, fp32), else the logical width. The ONE gate every
-    OOC lane-pad caller (gram_ooc, PCA moments, the fused Newton fit)
-    must share — inline copies previously dropped ``plan_possible`` and
-    paid host-side panel padding for widths the kernel rejects."""
-    import jax.numpy as jnp
-
-    if getattr(backend, "mesh", None) is None and dtype == jnp.float32:
-        from nums_tpu.core.ops import pallas_gram
-
-        dp = -(-d // 128) * 128
-        # plan_possible: don't pay host-side panel padding (plus a
-        # wider XLA contraction) for widths whose (dp, dp) f32
-        # accumulator the kernel's VMEM plan rejects anyway.
-        if pallas_gram.enabled() and pallas_gram.plan_possible(dp):
-            return dp
-    return d
 
 
 def ooc_accumulator(backend, value):
@@ -678,9 +646,10 @@ class ArrayApplication:
             return True
         if method == "householder":
             return False
-        # auto: CholeskyQR2 on TPU (all-GEMM; the batched Householder QR
-        # custom call does not compile on all TPU toolchains and is far
-        # off the MXU's fast path anyway).
+        # auto: CholeskyQR2 on any accelerator. It is two grams and two
+        # triangular solves, all large matrix products; the Householder
+        # tree is a chain of small batched QR factorizations. The CPU
+        # keeps Householder, which is robust for any conditioning.
         try:
             import jax
 
@@ -779,7 +748,7 @@ class ArrayApplication:
         problem to tall-skinny factorizations of width k+p: range finding
         Y = XΩ, power iterations with QR re-orthonormalization (accuracy
         ∝ σ_{k+1}/σ_k^{2q+1}), then an exact SVD of the (k+p, n)
-        projection B = QᵀX. Every step is a big MXU GEMM or the
+        projection B = QᵀX. Every step is a big matrix product or the
         framework's TSQR tree — no step materializes more than
         max(m, n)·(k+p). Beyond the reference (its SVD is single-node
         fan-in only, application.py:935-954 there).
@@ -914,16 +883,10 @@ class ArrayApplication:
         self.write_fs(ba, filename, replicas=replicas)
         return self.open_fs(filename)
 
-    def _ooc_put(self, panel, fill=0.0, lane_pad_to=None):
-        return ooc_put(
-            self.backend, panel, fill=fill, lane_pad_to=lane_pad_to
-        )
+    def _ooc_put(self, panel, fill=0.0):
+        return ooc_put(self.backend, panel, fill=fill)
 
-    def _ooc_lane_width(self, d, dtype):
-        return ooc_lane_width(self.backend, d, dtype)
-
-    def _ooc_accumulate(self, X, init, update, fill=0.0,
-                        lane_pad_to=None):
+    def _ooc_accumulate(self, X, init, update, fill=0.0):
         """Fold ``update(acc, panel_on_device)`` over X's row panels;
         under a mesh each panel is row-sharded across every device (the
         per-panel GEMM/reduction partitions with a psum). COLLECTIVE
@@ -931,7 +894,7 @@ class ArrayApplication:
         each process streams only its addressable panel rows."""
         acc = ooc_accumulator(self.backend, init)
         for _, panel in ooc_panels(X):
-            p, _ = self._ooc_put(panel, fill=fill, lane_pad_to=lane_pad_to)
+            p, _ = self._ooc_put(panel, fill=fill)
             acc = update(acc, p)
         return acc
 
@@ -944,21 +907,13 @@ class ArrayApplication:
 
         assert X.ndim == 2
         d = X.shape[1]
-        # jnp round-trip resolves device coercion (e.g. f64→f32 on TPU).
+        # jnp round-trip resolves dtype coercion (f64→f32 when x64 is off).
         dtype = jnp.asarray(np.zeros(0, dtype or X.dtype)).dtype
-        # Lane-padded symmetric route (serial, fp32): panels transfer
-        # zero-padded to the 128 multiple and each contraction rides
-        # the symmetric Pallas kernel (gram_update dispatches per
-        # shape); the accumulator's logical corner is sliced once.
-        dp = self._ooc_lane_width(d, dtype)
         upd = streaming.gram_update()
         G = self._ooc_accumulate(
-            X, jnp.zeros((dp, dp), dtype),
+            X, jnp.zeros((d, d), dtype),
             lambda acc, p: upd(acc, p.astype(dtype)),
-            lane_pad_to=dp if dp != d else None,
         )
-        if dp != d:
-            G = G[:d, :d]
         return BlockArray.from_jax(G, backend=self.backend)
 
     def _reduce0_ooc(self, X, op):
@@ -1029,19 +984,14 @@ class ArrayApplication:
         assert X.ndim == 2
         d = X.shape[1]
         dtype = jnp.asarray(np.zeros(0, X.dtype)).dtype
-        dp = self._ooc_lane_width(d, dtype)
         y_at = _ooc_y_getter(X, y)
         upd = streaming.normal_eq_update()
-        G = ooc_accumulator(self.backend, jnp.zeros((dp, dp), dtype))
-        b = ooc_accumulator(self.backend, jnp.zeros((dp,), dtype))
+        G = ooc_accumulator(self.backend, jnp.zeros((d, d), dtype))
+        b = ooc_accumulator(self.backend, jnp.zeros((d,), dtype))
         for start, panel in ooc_panels(X):
-            p, _ = self._ooc_put(
-                panel, lane_pad_to=dp if dp != d else None
-            )
+            p, _ = self._ooc_put(panel)
             yp, _ = self._ooc_put(y_at(start, panel.shape[0]))
             G, b = upd(G, b, p.astype(dtype), yp.astype(dtype))
-        if dp != d:
-            G, b = G[:d, :d], b[:d]
         if lamb:
             G = G + lamb * jnp.eye(d, dtype=dtype)
         theta = linalg.posdef_solve(G, b)

@@ -1,7 +1,7 @@
-"""BlockArray: a grid-partitioned distributed array on a TPU mesh.
+"""BlockArray: a grid-partitioned distributed array on a device mesh.
 
 Parity target: ``nums/core/array/base.py:27-377`` +
-``nums/core/array/blockarray.py:29-699`` (semantics only — fresh TPU-native
+``nums/core/array/blockarray.py:29-699`` (semantics only — fresh JAX-native
 design). The reference materializes each block as a separate remote object
 and drives per-block tasks from Python. Here a BlockArray is ONE
 ``jax.Array`` (sharded over the backend's mesh per its grid) plus
@@ -118,7 +118,7 @@ class BlockArray:
             ), (data.shape, grid.shape, transposed)
         if data.dtype.name != grid.dtype:
             # The device may have coerced the requested dtype (e.g. x64
-            # auto-off on TPU downcasts float64→float32). Metadata must
+            # auto-off on an accelerator downcasts float64→float32). Metadata must
             # report the ACTUAL on-device dtype, or a.dtype, checkpoints
             # and derived ops disagree with a.get().dtype.
             grid = ArrayGrid(grid.shape, grid.block_shape, data.dtype.name)
@@ -440,8 +440,8 @@ class BlockArray:
         # Elementwise ops commute with transpose (the flag carries
         # through) but NOT with at-rest padding: f(0) != 0 ops (exp,
         # cos, log, ...) would write nonzero values into the zero-filled
-        # pads that raw-buffer contractions (summa schedules, the
-        # symmetric Pallas gram) rely on being zero. padded.call slices
+        # pads that raw-buffer contractions (the summa schedules) rely
+        # on being zero. padded.call slices
         # pads away and re-pads the output with zeros, fused into the
         # same jitted program — the op writes the full buffer either
         # way, so this costs nothing on top of the raw path (and is a
@@ -720,9 +720,6 @@ class BlockArray:
         if collective is not None:
             return collective
         if other._data is self._data:
-            fast = self._pallas_gram_fast(other, static_axes)
-            if fast is not None:
-                return fast
             data, lshape = padded.call(
                 linear.tensordot_same(
                     static_axes, self._transposed, other._transposed
@@ -744,39 +741,6 @@ class BlockArray:
             )
         else:
             bs = array_utils.default_block_shape_for(lshape)
-        return self._new(data, bs, shape=lshape)
-
-    def _pallas_gram_fast(self, other, static_axes):
-        """x.T @ x on the PHYSICAL at-rest buffer via the symmetric
-        Pallas kernel (ops/pallas_gram), or None.
-
-        The kernel consumes the raw (possibly lane-padded) buffer with
-        NO slice-to-logical: zero-filled at-rest pads contribute zero
-        to the contraction, and a slice in front of a pallas custom
-        call would force XLA to materialize a relayouted copy of the
-        whole input. The (d_phys, d_phys) result has exactly-zero pads
-        — already the at-rest form for the logical (d, d). Serial
-        backend only (the kernel is single-device)."""
-        from nums_tpu.core.ops import pallas_gram
-
-        if (
-            static_axes != 1
-            or self.ndim != 2
-            or not self._transposed
-            or other._transposed
-            or self.backend.mesh is not None
-            or not pallas_gram.enabled()
-        ):
-            return None
-        phys = tuple(self._data.shape)
-        if len(phys) != 2 or not pallas_gram.supported(phys, self.dtype):
-            return None
-        kernel = pallas_gram.gram_fn(int(phys[0]), int(phys[1]))
-        data = lazy.apply(kernel, self._data)
-        lshape = (self.shape[0], other.shape[1])
-        bs = array_utils.tensordot_block_shape(
-            self.block_shape, other.block_shape, 1
-        )
         return self._new(data, bs, shape=lshape)
 
     @staticmethod
@@ -809,11 +773,11 @@ class BlockArray:
         """Hand-scheduled mesh GEMM (NUMS_TPU_COLLECTIVE_MATMUL=
         ring|summa|auto).
 
-        The TPU analogue of the reference's NCCL p2p path: explicit ICI
+        The analogue of the reference's NCCL p2p path: explicit device
         collectives instead of auto-SPMD. Covers all four transpose
         patterns: NN rides the ring/SUMMA schedule; TN (the x.T @ x
         headline) is a local GEMM + one reduce-scatter with the
-        transpose fused into the MXU contraction; NT all-gathers the B
+        transpose fused into the contraction; NT all-gathers the B
         panel; TT runs the NN schedule on the swapped raw buffers and
         marks the result lazily transposed (zero extra data movement).
         ``auto`` picks per-shape via ``summa.choose_schedule`` — the

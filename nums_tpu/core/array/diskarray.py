@@ -2,14 +2,14 @@
 
 The reference gets larger-than-memory aggregates implicitly — Ray's
 plasma object store spills blocks to disk and tasks fault them back in.
-The TPU-native equivalent is EXPLICIT streaming: a ``DiskArray`` is the
+The equivalent here is EXPLICIT streaming: a ``DiskArray`` is the
 ``write_fs`` checkpoint format (one .npy per grid block + meta.pkl,
 replication/CRC compatible) viewed as an array, and the hot ops
 (gram, normal equations, row reductions, TSQR-R, GLM training) stream
 row panels host→HBM with a prefetch thread overlapping disk IO against
-MXU compute. Peak HBM is O(panel + accumulator), so one chip processes
-datasets far beyond its 16 GB — configurations the reference needed an
-8-GPU cluster for (BASELINE.md N≥5M rows).
+device compute. Peak HBM is O(panel + accumulator), so one device
+processes datasets far beyond its memory — configurations the reference
+needed an 8-GPU cluster for (BASELINE.md N≥5M rows).
 
 Usage::
 

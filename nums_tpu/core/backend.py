@@ -1,8 +1,8 @@
 """Execution backends: where arrays live and how ops run.
 
 The reference's ``System`` layer (``nums/core/systems/systems.py:31-249``)
-dispatches one remote task per block through a scheduler. The TPU-native
-inversion: an array is ONE ``jax.Array`` whose sharding places its blocks;
+dispatches one remote task per block through a scheduler. The inversion
+here: an array is ONE ``jax.Array`` whose sharding places its blocks;
 ops are whole-array jitted programs and XLA's SPMD partitioner plays the
 scheduler. Two backends mirror the reference's serial/cluster split
 (``SerialSystem`` systems.py:69-142 / ``RaySystem``+``BlockCyclicScheduler``
@@ -10,7 +10,7 @@ systems.py:145-249, schedulers.py:140-246):
 
 - ``SerialBackend``: single device, plain jit. Testable anywhere.
 - ``MeshBackend``: ``jax.sharding.Mesh`` over all (or configured) devices;
-  arrays carry ``NamedSharding`` and collectives ride ICI.
+  arrays carry ``NamedSharding`` and XLA emits the collectives.
 """
 
 import numpy as np
@@ -40,7 +40,7 @@ class Backend:
     @property
     def num_cores_total(self):
         # Role of SystemInterface.num_cores_total: drives the block-shape
-        # policy. On TPU "cores" = devices in the mesh.
+        # policy. Here "cores" = devices in the mesh.
         return self.num_devices
 
     def sharding_for_grid(self, grid: ArrayGrid):
@@ -136,27 +136,6 @@ class SerialBackend(Backend):
     def num_devices(self):
         return 1
 
-    def physical_shape(self, shape: tuple, grid_shape: tuple = None):
-        """Optionally lane-pads the minor dim (NUMS_TPU_LANE_PAD): the
-        pad region is zero-filled at rest and every consumer either
-        slices to logical (ops/padded.py) or is pad-blind by zeros
-        (contractions), exactly like mesh ragged padding — but here the
-        motive is Mosaic's 128-lane block alignment, which lets the
-        symmetric Pallas gram consume the buffer with no relayout."""
-        del grid_shape
-        from nums_tpu.core import settings
-
-        shape = tuple(shape)
-        if (
-            settings.lane_pad
-            and len(shape) >= 2
-            and shape[-1] >= settings.lane_pad_min
-        ):
-            pad = (-shape[-1]) % 128
-            if pad:
-                return shape[:-1] + (shape[-1] + pad,)
-        return shape
-
     def sharding_for_grid(self, grid: ArrayGrid):
         return jax.sharding.SingleDeviceSharding(self._device)
 
@@ -168,7 +147,7 @@ class MeshBackend(Backend):
     (schedulers.py:140-246): array axis ``k`` is sharded over mesh axis
     ``m{k}`` when it is large enough to split; placement of each block is
     thus a static function of its grid entry, and cross-device movement is
-    emitted by XLA as ICI collectives instead of object-store transfers.
+    emitted by XLA as device collectives instead of object-store transfers.
     """
 
     name = "mesh"

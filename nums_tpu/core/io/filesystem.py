@@ -574,7 +574,7 @@ class FileSystem:
         """Sharding-aware restore: each device shard is assembled from just
         the stored blocks it overlaps (``jax.make_array_from_callback``) —
         host memory stays O(shard), and restore works under ANY current
-        mesh shape regardless of the writer's grid (the TPU equivalent of
+        mesh shape regardless of the writer's grid (the equivalent of
         the reference's placement-aware re-read, application.py:164-171).
 
         A missing/unreadable primary block fails over to replica copies

@@ -2,7 +2,7 @@
 
 The reference's cluster story is Ray tasks spanning nodes
 (``nums/core/systems/systems.py:145-249``; node discovery at
-``schedulers.py:74-106``). The TPU-native equivalent is jax
+``schedulers.py:74-106``). The equivalent here is jax
 multi-controller SPMD: every host runs the SAME program against a
 coordinator (``jax.distributed.initialize``), ``jax.devices()`` spans
 all hosts, and one global ``Mesh`` shards every array across them —
@@ -55,9 +55,9 @@ def is_multiprocess() -> bool:
 def initialize():
     """Connect this process to the jax distributed runtime when the
     NUMS_TPU_COORDINATOR / NUMS_TPU_NUM_PROCESSES / NUMS_TPU_PROCESS_ID
-    env triple is present (the explicit-config path; on TPU pods with
-    metadata, plain ``jax.distributed.initialize()`` before
-    ``nums_tpu.init()`` also works and is detected). Idempotent."""
+    env triple is present (the explicit-config path; a user call to
+    plain ``jax.distributed.initialize()`` before ``nums_tpu.init()``
+    also works and is detected). Idempotent."""
     coord = os.environ.get("NUMS_TPU_COORDINATOR")
     if not coord:
         return False

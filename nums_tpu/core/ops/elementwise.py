@@ -35,7 +35,7 @@ def resolve_ufunc(name: str):
     if fn is None:
         fn = getattr(jsp_special, name, None)
     if fn is None:
-        raise NotImplementedError(f"No TPU kernel for ufunc {name!r}")
+        raise NotImplementedError(f"No device kernel for ufunc {name!r}")
     return fn
 
 

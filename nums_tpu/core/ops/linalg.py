@@ -10,8 +10,8 @@ The reference reduces per-row-strip R factors through a SINGLE-node fan-in
 (application.py:807-814) and notes the missing recursive extension
 (application.py:884). Here TSQR is a log-depth reduction tree expressed as
 batched (vmapped) panel QRs inside one jitted program: XLA batches the
-panel QRs across the MXU and, for row-sharded inputs, partitions the tree
-across devices with ICI all-gathers. Zero-row padding is exact for R
+panel QRs and, for row-sharded inputs, partitions the tree across
+devices with all-gathers. Zero-row padding is exact for R
 (QR([X;0]) has the same R as QR(X)), so ragged chunks cost nothing.
 """
 
@@ -25,8 +25,8 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-# Rows per leaf panel. Large enough to amortize QR overhead; panels of
-# (chunk, n<=512) sit comfortably in VMEM-scale working sets.
+# Rows per leaf panel. Large enough to amortize QR overhead, small
+# enough that a batch of (chunk, n<=512) panels stays cheap.
 DEFAULT_CHUNK = 8192
 
 
@@ -47,7 +47,7 @@ def _tsqr_r_impl(x, chunk):
         k = _cdiv(m, chunk)
         x = _pad_rows(x, k * chunk)
         panels = x.reshape(k, chunk, n)
-        rs = jnp.linalg.qr(panels, mode="r")  # (k, n, n), batched on MXU
+        rs = jnp.linalg.qr(panels, mode="r")  # (k, n, n), batched
         x = rs.reshape(k * n, n)
         m = k * n
     return jnp.linalg.qr(x, mode="r")
@@ -138,20 +138,19 @@ def _gram(x, precision, compensated=None):
     A single f32 dot over M=2^24 rows floors orthogonality at
     ~sqrt(M)·eps ≈ 1e-4 (round-1 measured 7.6e-5 at 2^24×128). Splitting
     into 4096-row chunk-grams caps the in-GEMM accumulation depth at
-    sqrt(chunk)·eps ≈ 4e-6 while every flop stays a full-width MXU
+    sqrt(chunk)·eps ≈ 4e-6 while every flop stays a full-width
     GEMM. The chunk SUM has two shapes, chosen by the (c, n, n)
-    chunk-gram stack size — both measured on-chip in round 3:
+    chunk-gram stack size:
 
     - stack ≤ ~0.5 GB (narrow n, e.g. the 2^24×128 TSQR: 268 MB): ONE
       batched GEMM for all chunk-grams + a pairwise tree-sum. A scanned
-      loop here serializes 4096 tiny GEMMs and ran 1.3× slower.
+      loop here serializes 4096 tiny GEMMs.
     - stack > ~0.5 GB (wide n, e.g. 2.5M×1000: 2.4 GB): a scanned loop
       with a KAHAN (accumulator, compensation) carry — O(n²) extra
-      memory, one read of X. The batched form materialized the stack
-      and re-read it log₂(c) times: measured 1.4× slower (61.3 vs
-      43.9 ms at 1.25M×1000) and OOM at 2.5M×1000 standalone. Kahan
-      also bounds cross-chunk error at O(eps), tighter than the tree's
-      log₂(c) ulps.
+      memory, one read of X. The batched form would materialize the
+      stack and re-read it log₂(c) times. Kahan also bounds
+      cross-chunk error at O(eps), tighter than the tree's log₂(c)
+      ulps.
 
     Auto-enabled for M ≥ 2^20 float32 inputs.
     """
@@ -209,8 +208,15 @@ def _gram(x, precision, compensated=None):
     return s
 
 
+def _mm_hi(a, b):
+    """(n, n) product of the two R factors at full fp32: at DEFAULT
+    precision a GPU runs it in TF32, which alone puts ~1e-4 relative
+    error into R (and into every Q·R reconstruction)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _cholqr_once(x, precision):
-    """One CholeskyQR pass: G = XᵀX on the MXU, R = chol(G)ᵀ, Q = X R⁻¹."""
+    """One CholeskyQR pass: G = XᵀX, R = chol(G)ᵀ, Q = X R⁻¹."""
     g = _gram(x, precision)
     r = jnp.linalg.cholesky(g).T  # upper-triangular
     q = jax.lax.linalg.triangular_solve(
@@ -222,11 +228,11 @@ def _cholqr_once(x, precision):
 def _cholqr2_impl(x):
     """CholeskyQR2: two passes restore orthogonality to ~eps for
     cond(X) ≲ 1/sqrt(eps). All flops are GEMM/triangular-solve shaped —
-    the MXU-native TSQR (the Householder tree in ``_direct_tsqr_impl`` is
+    the matrix-unit TSQR (the Householder tree in ``_direct_tsqr_impl`` is
     the numerically-robust fallback)."""
     q1, r1 = _cholqr_once(x, jax.lax.Precision.HIGHEST)
     q, r2 = _cholqr_once(q1, jax.lax.Precision.HIGHEST)
-    return q, r2 @ r1
+    return q, _mm_hi(r2, r1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,7 +255,7 @@ def _cholqr_r_impl(x):
         r1, b, left_side=False, lower=False
     )
     r2 = jnp.linalg.cholesky(b).T
-    return r2 @ r1
+    return _mm_hi(r2, r1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,7 +300,7 @@ def _cholqr2_stream_impl(x, chunk_rows):
     g2 = _gram(q1, hi)
     r2 = jnp.linalg.cholesky(g2).T
     q = _inplace_right_mul(q1, jnp.linalg.inv(r2), chunk_rows)
-    return q, r2 @ r1
+    return q, _mm_hi(r2, r1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,6 +363,6 @@ posdef_solve = jax.jit(_posdef_solve_impl)
 
 
 def choose_chunk(m: int, n: int) -> int:
-    """Pick a leaf panel size: a few MXU-rich panels per level."""
+    """Pick a leaf panel size: a few GEMM-sized panels per level."""
     base = max(int(n), DEFAULT_CHUNK)
     return int(min(m, base)) if m > 0 else base

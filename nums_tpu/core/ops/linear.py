@@ -1,10 +1,10 @@
-"""Linear-algebra contraction kernels (MXU path).
+"""Linear-algebra contraction kernels.
 
 Replaces the reference's blocked tensordot driver loop — output block (i,j)
 = sum_k A[i,k]·B[k,j] dispatched as O(p·q·k) Ray tasks with a sequential
 add-chain (``nums/core/array/blockarray.py:442-473``) — with one jitted
-``dot_general``. XLA tiles it onto the MXU and, under a mesh, partitions it
-SUMMA-style with ICI all-gathers/reduce-scatters chosen by the SPMD
+``dot_general``. XLA tiles it onto the matrix units and, under a mesh,
+partitions it SUMMA-style with all-gathers/reduce-scatters chosen by the SPMD
 partitioner; the k-combine becomes a log-depth all-reduce instead of the
 reference's sequential chain.
 """
@@ -34,12 +34,9 @@ def tensordot(axes, t1: bool = False, t2: bool = False, precision=None):
 def tensordot_same(axes, t1: bool = False, t2: bool = False, precision=None):
     """Both operands are the SAME buffer (e.g. the gram product x.T @ x).
 
-    Passing one argument halves the program's argument footprint — some
-    PJRT transports account (and stage) duplicate arguments separately,
-    which OOMs at x.T@x scale otherwise. (The symmetric Pallas gram
-    dispatches one level up, BlockArray._pallas_gram_fast, on the
-    PHYSICAL buffer — inside this sliced-to-logical kernel a pallas
-    custom call would force XLA to materialize a relayouted copy.)
+    Passing one argument halves the program's argument footprint — a
+    runtime that stages duplicate arguments separately would otherwise
+    hold two copies at x.T@x scale.
     """
 
     def impl(a):

@@ -34,8 +34,6 @@ def _pad_out(out, backend):
     if pshape == shape:
         return out
     out = jnp.pad(out, [(0, p - s) for p, s in zip(pshape, shape)])
-    if getattr(backend, "mesh", None) is None:
-        return out  # serial lane padding: no sharding to constrain
     return jax.lax.with_sharding_constraint(
         out, backend.sharding_for_shape(pshape)
     )
@@ -123,8 +121,7 @@ def call(kernel, args, logical_shapes, backend, transposes=None):
     )
     transposes = tuple(transposes) if transposes else (False,) * n
     no_at_rest_padding = (
-        (backend.mesh is None and not settings.lane_pad)
-        or (backend.mesh is not None and not settings.pad_shard)
+        backend.mesh is None or not settings.pad_shard
     )
     if no_at_rest_padding:
         # No padding can exist at rest: buffers are logical already;
@@ -158,8 +155,6 @@ def pad_to(pshape: tuple, backend):
         x = jnp.pad(
             x, [(0, p - s) for p, s in zip(pshape, x.shape)]
         )
-        if getattr(backend, "mesh", None) is None:
-            return x  # serial lane padding: no sharding to constrain
         return jax.lax.with_sharding_constraint(
             x, backend.sharding_for_shape(pshape)
         )

@@ -1,4 +1,4 @@
-"""Random sampling kernels on the counter-based TPU PRNG.
+"""Random sampling kernels on JAX's counter-based PRNG.
 
 Replaces the reference's per-block PCG64 jump-ahead streams
 (``block_rng``/``RNG``, numpy_compute.py:29-81): jax's threefry is
@@ -308,7 +308,7 @@ def integers(shape: tuple, dtype_name: str, endpoint: bool, sharding,
         if endpoint:
             # Draw on [low-1, high) and add 1: high+1 would overflow to
             # the dtype minimum when high is the dtype max (int32 on
-            # TPU, where x64 stays off), inverting the range.
+            # an accelerator, where x64 stays off), inverting the range.
             draws = jr.randint(key, shape, low - 1, high, dtype) + 1
         else:
             draws = jr.randint(key, shape, low, high, dtype)

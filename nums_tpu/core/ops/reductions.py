@@ -4,7 +4,7 @@ Replaces the reference's two-stage reductions — per-block ``reduce_axis``
 kernels then a pairwise tree of ``bop`` adds/fmin/fmax between blocks
 (``nums/core/array/blockarray.py:337-408``, numpy_compute.py:181-186,
 210-211) — with single jitted whole-array reductions. Under a mesh, XLA
-lowers the cross-shard stage to ICI all-reduce trees, which is exactly the
+lowers the cross-shard stage to all-reduce trees, which is exactly the
 log-depth combine the reference lacked (its k-chain was sequential).
 """
 

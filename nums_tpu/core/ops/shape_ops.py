@@ -2,7 +2,7 @@
 
 The reference implements reshape as three driver-side strategies over block
 copies (``nums/core/array/blockarray.py:702-855``: factor-of-1, re-block via
-setitem, arbitrary index-translation). On TPU all three collapse to XLA
+setitem, arbitrary index-translation). Here all three collapse to XLA
 ``reshape`` — a layout change on one device and an automatic resharding
 (all-to-all) under a mesh. Re-blocking without a logical reshape is a pure
 sharding change (see ``BlockArray.reshape``).

@@ -17,15 +17,7 @@ from nums_tpu.core.ops import linalg as _linalg
 
 @functools.lru_cache(maxsize=None)
 def gram_update():
-    """G += panelᵀ panel.
-
-    Per-shape dispatch (at trace time): a lane-aligned fp32 panel —
-    what ``gram_ooc`` transfers when the symmetric Pallas kernel is
-    enabled — contracts via the upper-triangular-only kernel; anything
-    else (unaligned width, ragged tail panel too short to stream,
-    other dtypes) takes the XLA dot. Both routes compute the same
-    logical values (pad columns are zero), so mixed panels are fine.
-    """
+    """G += panelᵀ panel."""
 
     @functools.partial(jax.jit, donate_argnums=(0,))
     def k(G, panel):
@@ -35,15 +27,8 @@ def gram_update():
 
 
 def _sym_gram(panel):
-    """panelᵀ panel with per-shape dispatch (trace time): lane-aligned
-    fp32 panels ride the symmetric Pallas kernel, everything else takes
-    the XLA dot. Pad columns, if any, are zero, so both routes compute
-    the same logical values."""
-    from nums_tpu.core.ops import pallas_gram
-
-    shp = (int(panel.shape[0]), int(panel.shape[1]))
-    if pallas_gram.enabled() and pallas_gram.supported(shp, panel.dtype):
-        return pallas_gram.gram(panel)
+    """panelᵀ panel, left to XLA (one dot_general; no transpose is
+    materialized)."""
     return panel.T @ panel
 
 
@@ -155,71 +140,39 @@ def glm_stats_update(kind: str):
 @functools.lru_cache(maxsize=None)
 def glm_stats_update_aug(kind: str):
     """``glm_stats_update`` for panels that arrive ALREADY
-    intercept-augmented (and possibly lane-padded) from
-    ``ooc_put(augment_ones=True, lane_pad_to=...)`` — serial backend
-    only (no pad rows to mask). The Hessian contraction rides the
-    symmetric Pallas kernel as gram(√s·pa) when the panel shape
-    qualifies; pad columns are zero so every pad entry of g and H is
-    exactly zero either way."""
+    intercept-augmented from ``ooc_put(augment_ones=True)`` — serial
+    backend only (no pad rows to mask)."""
 
     @functools.partial(jax.jit, donate_argnums=(0, 1))
     def k(g, H, pa, y_panel, beta):
-        from nums_tpu.core.ops import pallas_gram, pallas_newton
-
-        shp = (int(pa.shape[0]), int(pa.shape[1]))
-        if pallas_newton.enabled() and pallas_newton.supported(
-            shp, pa.dtype
-        ):
-            # Fused one-pass panel stats: eta, link chain, g, and the
-            # weighted symmetric Hessian from a SINGLE HBM read of the
-            # panel (the chain below reads it three times).
-            pg, pH = pallas_newton.stats(pa, y_panel, beta, kind)
-            return g + pg, H + pH
         eta = pa @ beta
         if kind == "logistic":
             mu = jax.nn.sigmoid(eta)
             s = mu * (1.0 - mu)
         elif kind == "linear":
             mu = eta
-            s = jnp.ones_like(eta)
+            s = None  # H = paᵀpa: no (n,) ones vector to stream
         elif kind == "poisson":
             mu = jnp.exp(eta)
             s = mu
         else:
             raise ValueError(kind)
         g = g + pa.T @ (mu - y_panel)
-        # linear's Hessian weight is identically 1: the unweighted gram
-        # is the same math without streaming an (n,) ones vector through
-        # the scaled kernel (or a second compiled kernel variant).
-        if pallas_gram.enabled() and pallas_gram.supported(shp, pa.dtype):
-            # Per-row Hessian weight fused into the kernel's VMEM pass
-            # (no materialized √s·pa panel copy).
-            H = H + pallas_gram.gram(pa, None if kind == "linear" else s)
-        elif kind == "linear":
-            H = H + pa.T @ pa
-        else:
-            H = H + (pa * s[:, None]).T @ pa
-        return g, H
+        pw = pa if s is None else pa * s[:, None]
+        return g, H + pw.T @ pa
 
     return k
 
 
 @functools.lru_cache(maxsize=None)
-def newton_update(penalized: bool, pad_from: int = None):
-    """beta' = beta − (H + diag(λ))⁻¹ (g + λ∘beta); returns max|g|.
-
-    ``pad_from``: lane-padded stats — H's pad rows/cols are zero; give
-    them a unit diagonal so the Cholesky stays positive-definite (g and
-    beta pads are zero, so the step's pad entries stay exactly zero)."""
+def newton_update(penalized: bool):
+    """beta' = beta − (H + diag(λ))⁻¹ (g + λ∘beta); returns max|g|."""
 
     @jax.jit
     def k(beta, g, H, lambda_vec):
         if penalized:
             g = g + lambda_vec * beta
             H = H + jnp.diag(lambda_vec)
-        if pad_from is not None:
-            pad = (jnp.arange(H.shape[0]) >= pad_from).astype(H.dtype)
-            H = H + jnp.diag(pad)
         step = _linalg._posdef_solve_impl(H, g)
         return beta - step, jnp.max(jnp.abs(g))
 

@@ -1,12 +1,12 @@
-"""Explicit SUMMA GEMM over a 2-D device mesh (shard_map + ICI collectives).
+"""Explicit SUMMA GEMM over a 2-D device mesh (shard_map + collectives).
 
 The reference's blocked tensordot is a driver-side SUMMA without the
 broadcast optimization (one Ray task per (i,j,k) block product and a
 sequential add chain, blockarray.py:442-473). XLA's SPMD partitioner
 already produces a good SUMMA automatically for sharded `dot_general`
 (that is the default path); this module is the HAND-SCHEDULED version —
-explicit all-gathers of A's row panels / B's column panels over ICI and a
-local MXU GEMM per shard — for when the auto-partitioner's choice is
+explicit all-gathers of A's row panels / B's column panels and a
+local GEMM per shard — for when the auto-partitioner's choice is
 wrong, and as the substrate for future ppermute-pipelined (memory-bound)
 variants.
 
@@ -26,15 +26,15 @@ from jax.sharding import PartitionSpec as P
 # Auto-dispatch cost model (NUMS_TPU_COLLECTIVE_MATMUL=auto).
 #
 # The reference auto-routes transfers per-operand at dispatch time
-# (gpu_systems.py:556-606 there); the TPU analogue is choosing between
+# (gpu_systems.py:556-606 there); the analogue here is choosing between
 # XLA's auto-SPMD schedule and the hand-scheduled kernels below. Each
-# constant is named and isolated so the real-ICI tuning round can
+# constant is named and isolated so a tuning round on real links can
 # recalibrate them independently from measured sweeps
 # (scripts/benchmark_collective.py writes the per-schedule columns).
 # ---------------------------------------------------------------------------
 
 # TN replaces XLA's gather+GEMM with a local GEMM + ONE reduce-scatter
-# (transpose fused into the MXU contraction) — profitable whenever the
+# (transpose fused into the contraction) — profitable whenever the
 # per-device (m, n) partial product stays comfortably in HBM.
 AUTO_TN_MAX_PARTIAL_BYTES = 256 * 2**20
 # NT all-gathers the full Braw (n, K) panel onto every device; past this
@@ -151,7 +151,7 @@ def ring_matmul(mesh_backend, precision=None):
     the local A panel with the circulating B shard. The transfer of the
     NEXT shard (``lax.ppermute``) is issued BEFORE this step's GEMM and
     is not consumed until the next iteration, so XLA's async-collective
-    scheduling overlaps the ICI hop with the MXU compute — the TPU
+    scheduling overlaps the device-to-device hop with the GEMM — the
     analogue of the reference's NCCL p2p win over object-store copies
     (``nums/core/systems/gpu_systems.py:421-461``). The last step does
     no permute (p-1 hops total, same as the theoretical minimum).
@@ -215,7 +215,7 @@ def tn_matmul(mesh_backend, precision=None):
 
     Araw (K, m) and B (K, n) arrive row-sharded over mesh axis 0 (their
     at-rest layout); each device computes its full (m, n) partial
-    product on the MXU, then a single ``psum_scatter`` (reduce-scatter)
+    product, then a single ``psum_scatter`` (reduce-scatter)
     over the row axis both sums the K-partials and leaves C row-sharded
     — a log-depth tree where the reference chains adds sequentially
     (blockarray.py:464-472 there). Zero-filled at-rest pads on the K
@@ -259,7 +259,7 @@ def nt_matmul(mesh_backend, precision=None):
     """C = A @ Braw.T — transposed-right pattern, hand-scheduled.
 
     A (m, K) row-sharded; Braw (n, K) row-sharded. The B panel is
-    all-gathered over ICI (its n axis is the sharded one, so the gather
+    all-gathered (its n axis is the sharded one, so the gather
     is the only collective) and contracted against the local A rows
     with the transpose fused into the GEMM — no materialized transpose,
     C comes out row-sharded with no further communication.

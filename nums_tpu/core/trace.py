@@ -2,13 +2,13 @@
 
 The reference's observability is a DEBUG root logger plus per-placement
 scheduler logs (``BlockCyclicScheduler(verbose=True)``,
-schedulers.py:229-244). TPU-native equivalent:
+schedulers.py:229-244). The equivalent here:
 
 - an op-event log at the dispatch layer (every BlockArray op, with name,
   operand shapes, and logical output shape) — enable with
   ``NUMS_TPU_TRACE=1`` or ``trace.enable()``;
 - ``profile(path)``: context manager around ``jax.profiler.trace`` to
-  capture an XLA/TPU trace viewable in TensorBoard/Perfetto;
+  capture an XLA device trace viewable in TensorBoard/Perfetto;
 - ``annotate(name)``: named region in the profiler timeline.
 """
 
@@ -65,7 +65,7 @@ def is_enabled():
 
 @contextlib.contextmanager
 def profile(logdir: str):
-    """Capture a device profile (XLA ops, HBM, MXU utilization) to
+    """Capture a device profile (XLA ops, kernels, memory) to
     ``logdir``; open with TensorBoard's profile plugin or Perfetto."""
     import jax
 

@@ -2,7 +2,7 @@
 
 Parity target: ``nums/experimental/nums_modin.py:8-58``. The reference
 zero-copies Modin's Ray partitions via ``from_oid`` and concatenates;
-without a shared object store the TPU equivalent streams partitions
+without a shared object store the equivalent here streams partitions
 host-side into the sharded device array PARTITION-AT-A-TIME (peak host
 memory O(partition), not O(frame)) via the same region-callback restore
 used by checkpoint reads.

@@ -1,9 +1,9 @@
-"""TPU-native clustering: KMeans (Lloyd's) as ONE fused XLA program.
+"""Clustering: KMeans (Lloyd's) as ONE fused XLA program.
 
 Beyond the reference (which has no clustering). Design notes:
 
 - The distance matrix is computed as ||x||² − 2·X@Cᵀ + ||c||² — the
-  O(n·k·d) term rides the MXU as a single GEMM per iteration.
+  O(n·k·d) term is a single GEMM per iteration.
 - Center updates are one scatter-add (sums) + one scatter-add (counts).
 - The whole fit is a ``lax.while_loop`` with an on-device shift test —
   zero host syncs until the final fetch (same design as fast_glm).
@@ -26,7 +26,7 @@ __all__ = ["KMeans"]
 
 
 def _dists2(x, c):
-    # (n, k) squared distances; the x·cᵀ term is the MXU GEMM.
+    # (n, k) squared distances; the x·cᵀ term is the GEMM.
     xx = (x * x).sum(axis=1, keepdims=True)
     cc = (c * c).sum(axis=1)
     return jnp.maximum(xx - 2.0 * (x @ c.T) + cc[None, :], 0.0)

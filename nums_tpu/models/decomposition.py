@@ -1,4 +1,4 @@
-"""TPU-native dimensionality reduction: PCA and TruncatedSVD.
+"""Dimensionality reduction: PCA and TruncatedSVD.
 
 Beyond the reference's model zoo (it ships GLMs plus an empty trees
 placeholder; no decomposition models), but a natural fit here: both
@@ -149,28 +149,19 @@ class _BaseSVDModel:
         import jax.numpy as jnp
 
         from nums_tpu.core.array.application import (
-            ooc_accumulator, ooc_lane_width, ooc_panels, ooc_put,
+            ooc_accumulator, ooc_panels, ooc_put,
         )
         from nums_tpu.core.ops import streaming
 
         backend = X.backend
         d = X.shape[1]
         dtype = jnp.asarray(np.zeros(0, X.dtype)).dtype
-        # Lane-padded symmetric route (serial fp32): see
-        # application.gram_ooc — panels transfer zero-padded so the
-        # streamed gram rides the symmetric Pallas kernel. The shared
-        # gate includes plan_possible (padding a width the kernel's
-        # VMEM plan rejects would be pure waste).
-        dp = ooc_lane_width(backend, d, dtype)
         upd = streaming.gram_and_sum_update()
-        G = ooc_accumulator(backend, jnp.zeros((dp, dp), dtype))
-        s = ooc_accumulator(backend, jnp.zeros((dp,), dtype))
+        G = ooc_accumulator(backend, jnp.zeros((d, d), dtype))
+        s = ooc_accumulator(backend, jnp.zeros((d,), dtype))
         for _, panel in ooc_panels(X):
-            p, _ = ooc_put(backend, panel,
-                           lane_pad_to=dp if dp != d else None)
+            p, _ = ooc_put(backend, panel)
             G, s = upd(G, s, p.astype(dtype))
-        if dp != d:
-            G, s = G[:d, :d], s[:d]
         G = np.asarray(_jax.device_get(G), dtype=np.float64)
         mu = np.asarray(_jax.device_get(s), dtype=np.float64) / X.shape[0]
         return G, mu

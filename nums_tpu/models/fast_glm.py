@@ -1,16 +1,16 @@
-"""Fused TPU training steps for GLMs.
+"""Fused training steps for GLMs.
 
 The BlockArray-level GLM (``nums_tpu.models.glms``) mirrors the reference's
 eager per-op structure (one dispatch per op, parity with
-``nums/models/glms.py``). This module is the TPU-native fast path: the
+``nums/models/glms.py``). This module is the fused fast path: the
 ENTIRE solver iteration (forward, gradient, Hessian, Cholesky solve) is one
 jitted program, so XLA fuses the elementwise chain into the two matmuls
-and the MXU sees back-to-back GEMMs. This is the flagship "model" for
+and the device runs back-to-back GEMMs. This is the flagship "model" for
 benchmarks (reference analogue: ``scripts/benchmark_lr.py:56-150``'s
 one-step Newton benchmark).
 
 Under a mesh: X is sharded (rows = data-parallel, cols = tensor-parallel);
-XLA inserts the psum for X^T(mu-y) and X^T S X over ICI automatically.
+XLA inserts the psum for X^T(mu-y) and X^T S X automatically.
 """
 
 import functools
@@ -30,53 +30,14 @@ def _posdef_solve(a, b):
     return jax.scipy.linalg.solve_triangular(l.T, z, lower=False)
 
 
-def _gram(X, s=None, pallas=False):
-    """H = Xᵀ diag(s) X (or XᵀX when ``s`` is None).
-
-    With ``pallas=True`` the contraction rides the symmetric Pallas
-    kernel as gram(√s·X) — upper-triangular tiles only, ~44% fewer MXU
-    FLOPs (``core/ops/pallas_gram.py``). The CALLER opts in (static
-    flag): the kernel requires a lane-aligned unsharded fp32 buffer
-    whose pad columns, if any, are zero — conditions the BlockArray
-    layer checks (``glms._fused_newton``), not this module.
-    """
-    if pallas:
-        from nums_tpu.core.ops import pallas_gram
-
-        # The Hessian weight fuses INTO the kernel (per-row √s scale in
-        # VMEM): materializing √s·X first cost one full extra HBM
-        # write+read of the (n, d) buffer per Newton iteration.
-        return pallas_gram.gram(X, s)
+def _gram(X, s=None):
+    """H = Xᵀ diag(s) X (or XᵀX when ``s`` is None)."""
     Xw = X if s is None else X * s[:, None]
     return Xw.T @ X
 
 
-def _pad_identity(H, pad_from):
-    """At-rest lane pads leave zero rows/cols in H — give them unit
-    diagonal so the Cholesky stays positive-definite (g's pads are
-    zero, so the solve's pad entries are exactly zero)."""
-    if pad_from is None:
-        return H
-    pad = (jnp.arange(H.shape[0]) >= pad_from).astype(H.dtype)
-    return H + jnp.diag(pad)
-
-
-def _newton_stats(kind, X, y, beta, pallas):
-    """(g, H) for one Newton iteration.
-
-    With ``pallas=True`` this is ONE HBM pass over X when the fused
-    Newton-stats kernel qualifies (``core/ops/pallas_newton.py``: eta,
-    link chain, g, and the symmetric weighted Hessian from a single
-    VMEM-streamed read — the XLA chain reads X three times). Falls to
-    the eta/g XLA chain + symmetric gram kernel otherwise, and to pure
-    XLA when neither kernel qualifies."""
-    if pallas:
-        from nums_tpu.core.ops import pallas_newton
-
-        if pallas_newton.enabled() and pallas_newton.supported(
-            X.shape, X.dtype
-        ):
-            return pallas_newton.stats(X, y, beta, kind)
+def _newton_stats(kind, X, y, beta):
+    """(g, H) for one Newton iteration."""
     if kind == "logistic":
         mu = _sigmoid(X @ beta)
         s = mu * (1.0 - mu)
@@ -89,34 +50,31 @@ def _newton_stats(kind, X, y, beta, pallas):
     else:
         raise ValueError(kind)
     g = X.T @ (mu - y)
-    return g, _gram(X, s, pallas=pallas)
+    return g, _gram(X, s)
 
 
-def logistic_newton_step(X, y, beta, pallas=False, pad_from=None):
+def logistic_newton_step(X, y, beta):
     """One Newton step of logistic regression. Fully fused.
 
     Matches the math of the reference benchmark step
     (scripts/benchmark_lr.py:56-150): mu = sigmoid(X beta);
     g = X^T (mu - y); H = X^T S X; beta' = beta - H^{-1} g.
-    ``pallas``/``pad_from``: lane-padded opt-in, see ``newton_fit``.
     """
-    g, H = _newton_stats("logistic", X, y, beta, pallas)
-    return beta - _posdef_solve(_pad_identity(H, pad_from), g), g
+    g, H = _newton_stats("logistic", X, y, beta)
+    return beta - _posdef_solve(H, g), g
 
 
-logistic_newton_step_jit = jax.jit(
-    logistic_newton_step, static_argnames=("pallas", "pad_from")
-)
+logistic_newton_step_jit = jax.jit(logistic_newton_step)
 
 
-def linear_newton_step(X, y, beta, pallas=False, pad_from=None):
-    g, H = _newton_stats("linear", X, y, beta, pallas)
-    return beta - _posdef_solve(_pad_identity(H, pad_from), g), g
+def linear_newton_step(X, y, beta):
+    g, H = _newton_stats("linear", X, y, beta)
+    return beta - _posdef_solve(H, g), g
 
 
-def poisson_newton_step(X, y, beta, pallas=False, pad_from=None):
-    g, H = _newton_stats("poisson", X, y, beta, pallas)
-    return beta - _posdef_solve(_pad_identity(H, pad_from), g), g
+def poisson_newton_step(X, y, beta):
+    g, H = _newton_stats("poisson", X, y, beta)
+    return beta - _posdef_solve(H, g), g
 
 
 _STEPS = {
@@ -126,40 +84,31 @@ _STEPS = {
 }
 
 
-def _newton_step_penalized(kind, X, y, beta, lambda_vec,
-                           pallas=False, pad_from=None):
+def _newton_step_penalized(kind, X, y, beta, lambda_vec):
     """One Newton step with l2 penalty: g += λ∘β; H += diag(λ).
 
     (The reference broadcasts the λ vector across the whole Hessian —
     glms.py:239 adds λ_j to every entry of column j, an asymmetric
     perturbation; that is a reference bug, fixed identically here and
     in the eager path. See DIVERGENCES.md.)"""
-    g, H = _newton_stats(kind, X, y, beta, pallas)
+    g, H = _newton_stats(kind, X, y, beta)
     if lambda_vec is not None:
         g = g + lambda_vec * beta
         H = H + jnp.diag(lambda_vec)
-    return beta - _posdef_solve(_pad_identity(H, pad_from), g), g
+    return beta - _posdef_solve(H, g), g
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("kind", "max_iter", "penalized", "pallas", "pad_from"),
+    static_argnames=("kind", "max_iter", "penalized"),
 )
 def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
-               penalized=False, lambda_vec=None,
-               pallas=False, pad_from=None):
+               penalized=False, lambda_vec=None):
     """Full Newton training with ON-DEVICE convergence: the loop is a
     lax.while_loop checking max|g| <= tol after each update — semantics
     identical to the reference's driver loop (glms.py:362-372) but with
     zero per-iteration host syncs (the reference ray.get's every
-    iteration, its acknowledged choke point).
-
-    ``pallas``/``pad_from``: opt-in from the BlockArray layer — X is
-    the at-rest lane-padded PHYSICAL buffer (zero pad columns from
-    ``pad_from`` on), beta0/lambda_vec are zero-padded to match, and
-    the Hessian rides the symmetric Pallas kernel; pads stay exactly
-    zero through every iteration (zero X columns → zero g/H entries,
-    unit pad diagonal in the solve)."""
+    iteration, its acknowledged choke point)."""
     lv = lambda_vec if penalized else None
 
     def cond(state):
@@ -168,9 +117,7 @@ def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
 
     def body(state):
         beta, _, it = state
-        beta, g = _newton_step_penalized(
-            kind, X, y, beta, lv, pallas=pallas, pad_from=pad_from
-        )
+        beta, g = _newton_step_penalized(kind, X, y, beta, lv)
         return beta, jnp.max(jnp.abs(g)), it + 1
 
     init = (beta0, jnp.array(jnp.inf, X.dtype), jnp.array(0, jnp.int32))
@@ -303,8 +250,8 @@ def admm_fit(X, y, beta0, tol, kind="linear", max_iter=100, rho=1.0,
     scaled dual. The WHOLE loop is one on-device lax.while_loop with the
     standard primal/dual-residual stopping rule — zero host syncs.
 
-    TPU shape: for the linear kind the Gram XᵀX and Xᵀy are hoisted out
-    of the loop (the two big MXU GEMMs happen ONCE; each iteration is two
+    For the linear kind the Gram XᵀX and Xᵀy are hoisted out
+    of the loop (the two big GEMMs happen ONCE; each iteration is two
     (d,d) triangular solves off a cached Cholesky factor — the classic
     ADMM-lasso factorization-caching trick). For logistic/poisson the
     β-update runs ``newton_steps`` damped-free Newton steps on the
@@ -329,7 +276,7 @@ def admm_fit(X, y, beta0, tol, kind="linear", max_iter=100, rho=1.0,
     eye = jnp.eye(d, dtype=X.dtype)
 
     if kind == "linear":
-        G = X.T @ X  # hoisted: the big MXU GEMMs happen once
+        G = X.T @ X  # hoisted: the big GEMMs happen once
         q0 = X.T @ y
 
         def beta_update(beta, v, rho):
@@ -408,7 +355,7 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
     one scalar sync — the same cadence as the reference's eager loop
     (glms.py:362-372 there), but the dataset never has to fit in device
     (or even host) memory. The reference needed its whole cluster's
-    object store for this; here ONE chip trains any disk-sized dataset.
+    object store for this; here ONE device trains any disk-sized dataset.
 
     y: host array, BlockArray, or a 1-D DiskArray sharing X's row
     partitioning. Returns (beta_with_intercept, max|g|, iterations).
@@ -423,50 +370,28 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
     import numpy as np
 
     backend = X_disk.backend
-    # jnp round-trip resolves device coercion (e.g. f64→f32 on TPU).
+    # jnp round-trip resolves dtype coercion (f64→f32 when x64 is off).
     dtype = jnp.asarray(np.zeros(0, dtype or X_disk.dtype)).dtype
     y_at = _ooc_y_getter(X_disk, y)
-    # Lane-padded symmetric route (serial, fp32): panels arrive
-    # intercept-augmented AND zero-padded to the 128 multiple from
-    # ooc_put, so the per-panel Hessian rides the symmetric Pallas
-    # kernel; beta/λ/g/H carry the padded width (pads stay exactly
-    # zero) and beta's logical slice is returned.
     da = d + 1
-    from nums_tpu.core.array.application import ooc_lane_width
-
-    dp = ooc_lane_width(backend, da, dtype)
-    padded = dp != da
-    if padded:
-        stats = streaming.glm_stats_update_aug(kind)
-        newt = streaming.newton_update(bool(penalized), pad_from=da)
-    else:
-        stats = streaming.glm_stats_update(kind)
-        newt = streaming.newton_update(bool(penalized))
+    stats = streaming.glm_stats_update(kind)
+    newt = streaming.newton_update(bool(penalized))
     # Under multi-controller every carried array is mesh-replicated so
     # the jitted updates see (global panel, global stats) — a process-
     # local jnp.zeros cannot mix with a global panel in one jit.
     acc = lambda v: ooc_accumulator(backend, v)  # noqa: E731
-    lv0 = (
+    lv = acc(
         jnp.asarray(lambda_vec, dtype) if lambda_vec is not None
         else jnp.zeros((da,), dtype)
     )
-    if padded:
-        lv0 = jnp.pad(lv0, (0, dp - da))
-    lv = acc(lv0)
-    beta = acc(jnp.zeros((dp,), dtype))
+    beta = acc(jnp.zeros((da,), dtype))
     gmax = jnp.array(jnp.inf, dtype)
     it = 0
     for it in range(1, int(max_iter) + 1):
-        g = acc(jnp.zeros((dp,), dtype))
-        H = acc(jnp.zeros((dp, dp), dtype))
+        g = acc(jnp.zeros((da,), dtype))
+        H = acc(jnp.zeros((da, da), dtype))
         for start, panel in ooc_panels(X_disk):
             yp, _ = ooc_put(backend, y_at(start, panel.shape[0]))
-            if padded:
-                pa, _ = ooc_put(backend, panel, augment_ones=True,
-                                lane_pad_to=dp)
-                g, H = stats(g, H, pa.astype(dtype), yp.astype(dtype),
-                             beta)
-                continue
             # Mesh backends shard the panel rows over every device; pad
             # rows are masked out via nv inside the kernel.
             p, nv = ooc_put(backend, panel)
@@ -478,8 +403,6 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
         beta, gmax = newt(beta, g, H, lv)
         if float(gmax) <= tol:  # one scalar sync per PASS, not per op
             break
-    if padded:
-        beta = beta[:da]
     return beta, gmax, it
 
 

@@ -4,7 +4,7 @@ Parity target: ``nums/models/glms.py:64-398`` — same model family
 (Linear/Logistic/Poisson/Exponential regression), same five solvers
 (gd, sgd, block_sgd, newton/newton-cg, irls), same GLM math, written
 entirely against BlockArray/ArrayApplication so it runs unchanged on any
-backend. For TPU-speed training loops see ``nums_tpu.models.fast_glm``
+backend. For fused on-device training loops see ``nums_tpu.models.fast_glm``
 (fully jitted train step).
 """
 
@@ -267,40 +267,11 @@ class GLM:
         from nums_tpu.models import fast_glm
 
         lv = self._lambda_vec.data if self._lambda_vec is not None else None
-        Xd, pallas, pad_from = X.data, False, None
-        raw = X.raw
-        if (
-            X.backend.mesh is None
-            and not X._transposed
-            and raw.ndim == 2
-            and tuple(raw.shape)[0] == X.shape[0]
-            and tuple(raw.shape)[1] > X.shape[1]
-        ):
-            # At-rest lane-padded buffer (pads are zero by invariant):
-            # hand fast_glm the PHYSICAL array so the Hessian rides the
-            # symmetric Pallas kernel with no relayout copy.
-            from nums_tpu.core.ops import pallas_gram
-
-            if pallas_gram.enabled() and pallas_gram.supported(
-                tuple(raw.shape), raw.dtype
-            ):
-                Xd, pallas, pad_from = raw, True, int(X.shape[1])
-        import jax.numpy as jnp
-
-        beta_d, lv_d = beta.data, lv
-        if pad_from is not None:
-            extra = int(Xd.shape[1]) - pad_from
-            beta_d = jnp.pad(beta_d, (0, extra))
-            if lv_d is not None:
-                lv_d = jnp.pad(lv_d, (0, extra))
         beta_data, _, _ = fast_glm.newton_fit(
-            Xd, y.data, beta_d, self._tol,
+            X.data, y.data, beta.data, self._tol,
             kind=self._fused_kind, max_iter=int(max_iter),
-            penalized=lv_d is not None, lambda_vec=lv_d,
-            pallas=pallas, pad_from=pad_from,
+            penalized=lv is not None, lambda_vec=lv,
         )
-        if pad_from is not None:
-            beta_data = beta_data[:pad_from]
         from nums_tpu.core.array.blockarray import BlockArray
 
         return BlockArray.from_jax(

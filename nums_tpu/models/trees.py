@@ -1,4 +1,4 @@
-"""TPU-native gradient-boosted trees (histogram GBDT, oblivious trees).
+"""Gradient-boosted trees (histogram GBDT, oblivious trees).
 
 The reference ships an empty placeholder (``nums/models/trees.py`` is a
 license header only); this implements the family for real, designed for

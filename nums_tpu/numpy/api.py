@@ -48,7 +48,7 @@ def _not_implemented(fun):
 
     def wrapped(*args, **kwargs):
         raise NotImplementedError(
-            f"NumS-TPU does not yet implement numpy.{fun.__name__}. "
+            f"nums_tpu does not yet implement numpy.{fun.__name__}. "
         )
 
     wrapped.__name__ = getattr(fun, "__name__", str(fun))

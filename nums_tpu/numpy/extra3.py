@@ -398,7 +398,7 @@ def poly(seq_of_zeros):
 @functools.lru_cache(maxsize=None)
 def _roots_kernel(cap, cdt_name):
     """Jitted ``np.roots`` riding ``jax.pure_callback`` (general eig has
-    no XLA kernel on TPU). Returns (capacity-padded roots, count,
+    no XLA kernel on accelerators). Returns (capacity-padded roots, count,
     all-real flag); jitting gives the callback outputs clean shardings."""
     cdt = np.dtype(cdt_name)
 
@@ -422,7 +422,7 @@ def _roots_kernel(cap, cdt_name):
 
 def roots(p):
     """Polynomial roots with the general eig riding ``jax.pure_callback``
-    inside the program (XLA has no general-eig kernel on TPU): the
+    inside the program (XLA has no general-eig kernel on accelerators): the
     coefficients stay in the XLA program; ONE scalar sync (the root
     count, which depends on leading zeros) picks the logical shape —
     the capacity+slice idiom (ops/masking.py) — plus one boolean sync

@@ -188,7 +188,7 @@ def tensorsolve(a, b):
 @_functools.lru_cache(maxsize=None)
 def _eig_kernel(shape, cdt_name, values_only):
     """Jitted general-eig: the LAPACK call rides ``jax.pure_callback``
-    inside the program (XLA has no general-eig kernel on TPU), and the
+    inside the program (XLA has no general-eig kernel on accelerators), and the
     all-eigenvalues-real probe computes in the same program. Jitting
     gives the callback outputs clean shardings (eager pure_callback
     emits a maximal-device sharding later jits can't consume)."""
@@ -220,7 +220,7 @@ def _eig_kernel(shape, cdt_name, values_only):
 
 def eig(a):
     """General (non-symmetric) eig. XLA has no general-eig kernel on
-    TPU, so the LAPACK call rides ``jax.pure_callback`` INSIDE the
+    accelerators, so the LAPACK call rides ``jax.pure_callback`` INSIDE the
     program: a lazy chain feeding it stays fused and the operand never
     surfaces as a Python-level host array. ONE boolean sync picks the
     numpy-parity output dtype (real iff the input is real and every

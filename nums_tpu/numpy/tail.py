@@ -6,7 +6,7 @@ The reference fills all of these with ``_not_implemented`` stubs
 Device-side where the op maps onto XLA (bitwise_count, piecewise, ix_,
 apply_over_axes, bmat, from_dlpack, require); host round-trips only for
 CPU-only domains (datetime/busday calendars, np.matrix, nditer, text and
-binary file parsing) where no TPU kernel is meaningful.
+binary file parsing) where no device kernel is meaningful.
 """
 
 
@@ -62,7 +62,7 @@ def from_dlpack(x):
 
 
 def require(a, dtype=None, requirements=None):
-    """Memory-layout flags (C/F/ALIGNED/...) are XLA's concern on TPU;
+    """Memory-layout flags (C/F/ALIGNED/...) are XLA's concern on the device;
     equivalent to asarray with a dtype."""
     del requirements
     from nums_tpu.numpy import api as _api
@@ -249,7 +249,7 @@ def _host_passthrough(np_name, doc, wrap_out=False):
 
 _CAL_DOC = (
     "Business-day/datetime calendars are a host-only domain (datetime64 "
-    "has no TPU representation); numeric results are re-distributed."
+    "has no device representation); numeric results are re-distributed."
 )
 busday_count = _host_passthrough("busday_count", _CAL_DOC, wrap_out=True)
 busday_offset = _host_passthrough("busday_offset", _CAL_DOC)

@@ -3,9 +3,9 @@
 
 Times one full Newton step (forward + gradient + Hessian + solve) on
 N×1000 fp32 data, via the fused train step (nums_tpu.models.fast_glm) —
-the TPU-native equivalent of the reference's hand-written per-system step.
+the equivalent of the reference's hand-written per-system step.
 
-Usage: python scripts/benchmark_lr.py [--out result_lr_tpu.csv]
+Usage: python scripts/benchmark_lr.py [--out result_lr.csv]
 """
 
 import argparse
@@ -19,11 +19,11 @@ import jax.numpy as jnp
 
 def main(argv=None):
     sys.path.insert(0, ".")
-    from scripts.utils import benchmark_chained, append_csv
+    from scripts.utils import benchmark_ready, append_csv
     from nums_tpu.models.fast_glm import logistic_newton_step_jit
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--out", default="result_lr_tpu.csv")
+    parser.add_argument("--out", default="result_lr.csv")
     parser.add_argument("-d", type=int, default=1000)
     parser.add_argument(
         "--ns", default="125000,250000,500000,750000,1250000,2500000"
@@ -31,63 +31,34 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     import nums_tpu
-    from nums_tpu.core.ops import pallas_gram, pallas_newton
 
     nums_tpu.init()
     d = args.d
     for n in [int(x) for x in args.ns.split(",")]:
         try:
-            # Lane-padded symmetric route (round 4): generate X at a
-            # 128-aligned width with zero pad columns so the Hessian
-            # rides the upper-triangular-only Pallas kernel.
-            dp = -(-d // 128) * 128
-            use_pallas = pallas_gram.enabled() and pallas_gram.supported(
-                (n, dp), np.float32
-            )
-            if not use_pallas:
-                dp = d
-
             @jax.jit
-            def gen(n=n, dp=dp):
-                i = jax.lax.broadcasted_iota(jnp.float32, (n, dp), 0)
-                j = jax.lax.broadcasted_iota(jnp.float32, (n, dp), 1)
+            def gen(n=n):
+                i = jax.lax.broadcasted_iota(jnp.float32, (n, d), 0)
+                j = jax.lax.broadcasted_iota(jnp.float32, (n, d), 1)
                 X = jnp.sin(i * 1e-5) + jnp.cos(j * 0.37) * 0.5
-                if dp != d:
-                    X = jnp.where(j < d, X, 0.0)
                 y = (jnp.sin(i[:, 0] * 0.77) > 0).astype(jnp.float32)
                 return X, y
 
             X, y = gen()
-            beta = jnp.zeros((dp,), jnp.float32)
-            kw = dict(pallas=True, pad_from=d) if use_pallas else {}
-            # Which kernel actually serves the step (artifact record):
-            # "fused" = one-pass Newton-stats kernel (eta+g+H, one HBM
-            # read of X), "gram" = symmetric gram kernel for H only,
-            # "xla" = plain dot_generals.
-            if use_pallas and pallas_newton.enabled() and (
-                pallas_newton.supported((n, dp), np.float32)
-            ):
-                route = "fused"
-            elif use_pallas:
-                route = "gram"
-            else:
-                route = "xla"
-
-            tmin, tmean, tstd = benchmark_chained(
-                lambda: logistic_newton_step_jit(X, y, beta, **kw),
-                lambda out: float(out[0][0]),
+            beta = jnp.zeros((d,), jnp.float32)
+            tmin, tmean, tstd = benchmark_ready(
+                lambda: logistic_newton_step_jit(X, y, beta)
             )
             del X, y
         except Exception as e:
             print(f"N={n}: FAILED ({type(e).__name__})")
             append_csv(args.out, {"N": n, "d": d, "min_s": -1.0,
-                                  "mean_s": -1.0, "std_s": -1.0,
-                                  "route": "failed"})
+                                  "mean_s": -1.0, "std_s": -1.0})
             continue
-        print(f"N={n}: min {tmin:.4f}s mean {tmean:.4f}s [{route}]")
+        print(f"N={n}: min {tmin:.4f}s mean {tmean:.4f}s")
         append_csv(args.out, {"N": n, "d": d, "min_s": round(tmin, 5),
                               "mean_s": round(tmean, 5),
-                              "std_s": round(tstd, 5), "route": route})
+                              "std_s": round(tstd, 5)})
     return 0
 
 

@@ -1,4 +1,4 @@
-"""North-star rows for the beyond-reference models (VERDICT r4 next #8):
+"""North-star rows for the beyond-reference models:
 histogram GBDT (HIGGS-scale synthetic) and randomized SVD.
 
 The reference has NO working trees model (nums/models/trees.py is an
@@ -7,7 +7,7 @@ there), so these rows have no reference baseline — they make the
 "beyond parity" claims auditable with measured numbers.
 
 CSV schema: model,op,n,d,param,seconds,note
-Run on the TPU: python scripts/benchmark_models.py
+Run on the device: python scripts/benchmark_models.py
 Schema smoke on CPU: --smoke
 """
 
@@ -22,7 +22,7 @@ def main(argv=None):
     from scripts.utils import append_csv
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--out", default="result_models_tpu.csv")
+    parser.add_argument("--out", default="result_models.csv")
     parser.add_argument("--smoke", action="store_true")
     parser.add_argument("--gbdt-n", type=int, default=1_000_000)
     parser.add_argument("--svd-n", type=int, default=2**21)

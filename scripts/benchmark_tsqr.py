@@ -1,5 +1,5 @@
 """TSQR benchmark at the north-star scale (BASELINE.md: 2^24×128
-tall-skinny on TPU; reference analogue: application.py:772-933).
+tall-skinny; reference analogue: application.py:772-933).
 
 Times R-only (indirect_tsr) and full Q,R (direct_tsqr / CholeskyQR2).
 
@@ -16,12 +16,12 @@ import jax.numpy as jnp
 
 def main(argv=None):
     sys.path.insert(0, ".")
-    from scripts.utils import benchmark_chained, append_csv
+    from scripts.utils import benchmark_ready, append_csv
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--m", type=int, default=2**24)
     parser.add_argument("--n", type=int, default=128)
-    parser.add_argument("--out", default="result_tsqr_tpu.csv")
+    parser.add_argument("--out", default="result_tsqr.csv")
     args = parser.parse_args(argv)
 
     import nums_tpu
@@ -42,9 +42,7 @@ def main(argv=None):
     X = BlockArray.from_jax(gen(), block_shape=(block_rows, n),
                             backend=app.backend)
 
-    tmin, tmean, _ = benchmark_chained(
-        lambda: app.indirect_tsr(X).raw, lambda R: float(R[0, 0])
-    )
+    tmin, tmean, _ = benchmark_ready(lambda: app.indirect_tsr(X).raw)
     print(f"indirect_tsr (R only) {m}x{n}: min {tmin:.4f}s mean {tmean:.4f}s")
     append_csv(args.out, {"op": "indirect_tsr", "m": m, "n": n,
                           "min_s": round(tmin, 5)})
@@ -54,12 +52,11 @@ def main(argv=None):
     # shapes/flops, so timing stays representative).
     overwrite = 2 * X.nbytes > 12e9
     try:
-        tmin, tmean, _ = benchmark_chained(
+        tmin, tmean, _ = benchmark_ready(
             lambda: tuple(
                 a.raw for a in app.direct_tsqr(X, overwrite_x=overwrite)
             ),
-            lambda qr: float(qr[1][0, 0]),
-            chain=3,
+            repeat=3,
         )
         print(f"direct_tsqr (Q,R) {m}x{n}: min {tmin:.4f}s mean {tmean:.4f}s")
         append_csv(args.out, {"op": "direct_tsqr", "m": m, "n": n,

@@ -3,9 +3,9 @@
 
 Parity with the reference's ``scripts/plot_all.py`` (which renders its
 ``result_bop.csv``/``result_lr.csv`` against the GPU systems): this
-renders ``result_{bop,lr,tsqr,gemm,ooc}_tpu.csv`` against the
+renders ``result_{bop,lr,tsqr,gemm,ooc}.csv`` against the
 reference's published 4-GPU / 8-GPU numbers (BASELINE.md tables, from
-``/root/reference/scripts/result_bop.csv`` and ``result_lr.csv``).
+the reference's ``scripts/result_bop.csv`` and ``result_lr.csv``).
 
     python scripts/plot_all.py [--out plots/]
 
@@ -74,14 +74,14 @@ def _series(ax, xs, ys, color, label):
 
 
 def plot_bop(outdir):
-    rows = _read("result_bop_tpu.csv")
+    rows = _read("result_bop.csv")
     ours = {}
     for r in rows:  # keep the best (min) sweep per N
         n = int(r["N"])
         ours[n] = min(float(r["min_s"]), ours.get(n, float("inf")))
     # OOC device-mode rows extend ours past one chip's HBM (N >= 5M).
     ooc = {int(r["N"]): float(r["seconds"]) for r in _read(
-        "result_ooc_tpu.csv")
+        "result_ooc.csv")
         if r["op"] == "gram" and r["mode"] == "device"}
     fig, ax = plt.subplots(figsize=(6.4, 4.2), dpi=160)
     _style(ax, "x.T @ x  (N x 1000, fp32) — lower is better",
@@ -89,7 +89,7 @@ def plot_bop(outdir):
     ax.set_xscale("log")
     ax.set_yscale("log")
     for data, color, label in [
-        (ours, C_OURS, "nums_tpu (1 TPU v5e)"),
+        (ours, C_OURS, "nums_tpu (1 device)"),
         (BOP_4GPU, C_4GPU, "reference, 4 GPU"),
         (BOP_8GPU, C_8GPU, "reference, 8 GPU"),
     ]:
@@ -101,7 +101,7 @@ def plot_bop(outdir):
                 linestyle=(0, (4, 3)), marker="o", markersize=5,
                 markerfacecolor=SURFACE, markeredgecolor=C_OURS,
                 markeredgewidth=1.5,
-                label="nums_tpu OOC stream (1 chip)")
+                label="nums_tpu OOC stream (1 device)")
     ax.legend(frameon=False, fontsize=8, labelcolor=TEXT2)
     fig.tight_layout()
     fig.savefig(os.path.join(outdir, "bop.png"))
@@ -109,13 +109,13 @@ def plot_bop(outdir):
 
 
 def plot_lr(outdir):
-    rows = _read("result_lr_tpu.csv")
+    rows = _read("result_lr.csv")
     ours = {}
     for r in rows:
         n = int(r["N"])
         ours[n] = min(float(r["min_s"]), ours.get(n, float("inf")))
     ooc = {int(r["N"]): float(r["seconds"]) for r in _read(
-        "result_ooc_tpu.csv")
+        "result_ooc.csv")
         if r["op"] == "lr" and r["mode"] == "device"}
     fig, ax = plt.subplots(figsize=(6.4, 4.2), dpi=160)
     _style(ax, "Logistic regression, one Newton step (N x 1000, fp32)",
@@ -123,7 +123,7 @@ def plot_lr(outdir):
     ax.set_xscale("log")
     ax.set_yscale("log")
     for data, color, label in [
-        (ours, C_OURS, "nums_tpu (1 TPU v5e)"),
+        (ours, C_OURS, "nums_tpu (1 device)"),
         (LR_4GPU, C_4GPU, "reference, 4 GPU"),
         (LR_8GPU, C_8GPU, "reference, 8 GPU"),
     ]:
@@ -135,7 +135,7 @@ def plot_lr(outdir):
                 linestyle=(0, (4, 3)), marker="o", markersize=5,
                 markerfacecolor=SURFACE, markeredgecolor=C_OURS,
                 markeredgewidth=1.5,
-                label="nums_tpu OOC stream (1 chip)")
+                label="nums_tpu OOC stream (1 device)")
     ax.legend(frameon=False, fontsize=8, labelcolor=TEXT2)
     fig.tight_layout()
     fig.savefig(os.path.join(outdir, "lr.png"))
@@ -143,7 +143,7 @@ def plot_lr(outdir):
 
 
 def plot_tsqr(outdir):
-    rows = [r for r in _read("result_tsqr_tpu.csv")
+    rows = [r for r in _read("result_tsqr.csv")
             if int(r["m"]) == 2**24 and int(r["n"]) == 128]
     if not rows:
         return
@@ -152,7 +152,7 @@ def plot_tsqr(outdir):
     labels = [names.get(r["op"], r["op"]) for r in rows]
     vals = [float(r["min_s"]) for r in rows]
     fig, ax = plt.subplots(figsize=(5.2, 3.4), dpi=160)
-    _style(ax, "TSQR, 2^24 x 128 fp32 tall-skinny (1 TPU v5e)",
+    _style(ax, "TSQR, 2^24 x 128 fp32 tall-skinny (1 device)",
            "", "seconds")
     bars = ax.bar(labels, vals, width=0.5, color=C_OURS, zorder=3)
     for b in bars:  # 4px-equivalent rounded data-end stand-in: flat bars
@@ -166,23 +166,18 @@ def plot_tsqr(outdir):
 
 
 def plot_gemm(outdir):
-    rows = _read("result_gemm_tpu.csv")
+    rows = _read("result_gemm.csv")
     if not rows:
         return
-    peak = 197.0  # v5e bf16 peak TFLOP/s
-    labels = [f"{int(r['n'])//1024}k x {int(r['n'])//1024}k" for r in rows]
-    vals = [100.0 * float(r["tflops"]) / peak for r in rows]
+    labels = [f"{int(r['n'])//1024}k x {int(r['n'])//1024}k {r['dtype']}"
+              for r in rows]
+    vals = [float(r["tflops"]) for r in rows]
     fig, ax = plt.subplots(figsize=(5.2, 3.4), dpi=160)
-    _style(ax, "Square GEMM, bf16 — % of one chip's MXU peak",
-           "", "% of peak")
+    _style(ax, "Square GEMM on one device", "", "TFLOP/s")
     ax.bar(labels, vals, width=0.5, color=C_OURS, zorder=3)
-    ax.axhline(85, color=TEXT2, linewidth=1, linestyle=(0, (4, 3)))
-    ax.text(len(labels) - 0.55, 85, " 85% CI floor", fontsize=8,
-            color=TEXT2, va="bottom", ha="right")
     for i, v in enumerate(vals):
-        ax.text(i, v, f" {v:.1f}%", ha="center", va="bottom",
+        ax.text(i, v, f" {v:.1f}", ha="center", va="bottom",
                 fontsize=8, color=TEXT2)
-    ax.set_ylim(0, 105)
     ax.grid(axis="x", visible=False)
     fig.tight_layout()
     fig.savefig(os.path.join(outdir, "gemm.png"))
@@ -190,7 +185,7 @@ def plot_gemm(outdir):
 
 
 def plot_ooc(outdir):
-    rows = [r for r in _read("result_ooc_tpu.csv") if r["mode"] == "device"]
+    rows = [r for r in _read("result_ooc.csv") if r["mode"] == "device"]
     if not rows:
         return
     ops = {"gram": "gram (x.T @ x)", "lr": "Newton step"}
@@ -221,47 +216,13 @@ def plot_ooc(outdir):
     plt.close(fig)
 
 
-def plot_pallas_gram(outdir):
-    """XLA vs Pallas A/B per (op, n, d) — the committed artifact behind
-    the kernel speedup claims (result_pallas_gram_tpu.csv)."""
-    rows = [r for r in _read("result_pallas_gram_tpu.csv")
-            if r["op"] in ("gram", "gram_weighted")
-            and "lane-padded from" not in r["note"]
-            and "logical width" not in r["note"]]
-    if not rows:
-        return
-    pairs = {}  # (op, n, d) -> {route: min_s}
-    for r in rows:
-        key = (r["op"], int(r["n"]), int(r["d"]))
-        pairs.setdefault(key, {})[r["route"]] = float(r["min_s"])
-    keys = [k for k, v in sorted(pairs.items())
-            if "xla" in v and "pallas" in v]
-    if not keys:
-        return
-    labels = [f"{op.replace('gram_weighted', 'wgram')}\n"
-              f"{n // 1000}k x {d}" for op, n, d in keys]
-    speedups = [pairs[k]["xla"] / pairs[k]["pallas"] for k in keys]
-    fig, ax = plt.subplots(figsize=(6.4, 3.6), dpi=160)
-    _style(ax, "Symmetric Pallas gram vs XLA dot_general (fp32, 1 chip)",
-           "", "speedup (x)")
-    ax.bar(labels, speedups, width=0.55, color=C_OURS, zorder=3)
-    ax.axhline(1.0, color=TEXT2, linewidth=1, linestyle=(0, (4, 3)))
-    for i, v in enumerate(speedups):
-        ax.text(i, v, f" {v:.2f}x", ha="center", va="bottom",
-                fontsize=8, color=TEXT2)
-    ax.grid(axis="x", visible=False)
-    fig.tight_layout()
-    fig.savefig(os.path.join(outdir, "pallas_gram.png"))
-    plt.close(fig)
-
-
 C_BASE = "#8a8986"   # neutral baseline series (pure jax / plain XLA)
 
 
 def plot_interleave(outdir):
     """Pure-jax vs BlockArray interleaved A/B (dispatch overhead):
-    grouped bars per N from result_interleave_tpu.csv."""
-    rows = [r for r in _read("result_interleave_tpu.csv")
+    grouped bars per N from result_interleave.csv."""
+    rows = [r for r in _read("result_interleave.csv")
             if r.get("mode") == "interleave"]
     if not rows:
         return
@@ -274,7 +235,7 @@ def plot_interleave(outdir):
         return
     xs = range(len(ns))
     fig, ax = plt.subplots(figsize=(6.4, 3.6), dpi=160)
-    _style(ax, "Same-chip interleaved A/B: raw jax.jit vs BlockArray "
+    _style(ax, "Same-device interleaved A/B: raw jax.jit vs BlockArray "
                "dispatch", "N (rows, d=1000)", "seconds / execution")
     w, off = 0.36, 0.20
     ax.bar([x - off for x in xs], [med[n]["pure_jax"] for n in ns],
@@ -298,8 +259,8 @@ def plot_interleave(outdir):
 
 def plot_device_resident(outdir):
     """In-program fori_loop gram per route (device-resident throughput)
-    from result_device_resident_tpu.csv."""
-    rows = [r for r in _read("result_device_resident_tpu.csv")
+    from result_device_resident.csv."""
+    rows = [r for r in _read("result_device_resident.csv")
             if r.get("mode") == "device_resident"]
     if not rows:
         return
@@ -311,19 +272,13 @@ def plot_device_resident(outdir):
     fig, ax = plt.subplots(figsize=(6.4, 3.6), dpi=160)
     _style(ax, "Device-resident gram (in-program loop, fixed costs "
                "cancelled)", "N (rows)", "ms / iteration")
-    w, off = 0.36, 0.20
-    ax.bar([x - off for x in xs],
-           [med[n].get("xla", 0.0) * 1e3 for n in ns],
-           width=w, color=C_BASE, label="XLA dot_general", zorder=3)
-    ax.bar([x + off for x in xs],
-           [med[n].get("pallas", 0.0) * 1e3 for n in ns],
-           width=w, color=C_OURS, label="Pallas symmetric", zorder=3)
-    for x, n in zip(xs, ns):
-        for dx, route in ((-off, "xla"), (off, "pallas")):
-            v = med[n].get(route)
-            if v:
-                ax.text(x + dx, v * 1e3, f" {v * 1e3:.2f}", ha="center",
-                        va="bottom", fontsize=8, color=TEXT2)
+    vals = [med[n].get("xla", 0.0) * 1e3 for n in ns]
+    ax.bar(list(xs), vals, width=0.5, color=C_OURS,
+           label="XLA dot_general", zorder=3)
+    for x, v in zip(xs, vals):
+        if v:
+            ax.text(x, v, f" {v:.2f}", ha="center", va="bottom",
+                    fontsize=8, color=TEXT2)
     ax.set_xticks(list(xs))
     ax.set_xticklabels([f"{n // 1000}k" if n < 10**6
                         else f"{n / 1e6:g}M" for n in ns])
@@ -335,7 +290,7 @@ def plot_device_resident(outdir):
 
 
 def plot_models(outdir):
-    rows = _read("result_models_tpu.csv")
+    rows = _read("result_models.csv")
     if not rows:
         return
     best = {}
@@ -348,7 +303,7 @@ def plot_models(outdir):
               for (m, op, n, d) in best]
     vals = list(best.values())
     fig, ax = plt.subplots(figsize=(6.4, 3.6), dpi=160)
-    _style(ax, "Beyond-reference models (1 TPU v5e) — the reference "
+    _style(ax, "Beyond-reference models (1 device) — the reference "
                "has no trees model and single-node SVD only",
            "", "seconds")
     ax.bar(labels, vals, width=0.55, color=C_OURS, zorder=3)
@@ -371,7 +326,6 @@ def main(argv=None):
     plot_tsqr(args.out)
     plot_gemm(args.out)
     plot_ooc(args.out)
-    plot_pallas_gram(args.out)
     plot_models(args.out)
     plot_interleave(args.out)
     plot_device_resident(args.out)

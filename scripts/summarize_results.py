@@ -59,33 +59,33 @@ def main(argv=None):
     args = parser.parse_args(argv)
     d = args.dir
 
-    bop = read_csv(os.path.join(d, "result_bop_tpu.csv"))
+    bop = read_csv(os.path.join(d, "result_bop.csv"))
     if bop:
         print("## x.T @ x (N x 1000 fp32)\n")
         print(table(bop, BOP_BASELINE))
         print()
-    lr = read_csv(os.path.join(d, "result_lr_tpu.csv"))
+    lr = read_csv(os.path.join(d, "result_lr.csv"))
     if lr:
         print("## Logistic regression Newton step (N x 1000 fp32)\n")
         print(table(lr, LR_BASELINE))
         print()
-    tsqr = read_csv(os.path.join(d, "result_tsqr_tpu.csv"))
+    tsqr = read_csv(os.path.join(d, "result_tsqr.csv"))
     if tsqr:
         print("## TSQR\n")
         for row in tsqr:
             print(f"- {row['op']} {row['m']}x{row['n']}: {row['min_s']}s")
         print()
-    gemm = read_csv(os.path.join(d, "result_gemm_tpu.csv"))
+    gemm = read_csv(os.path.join(d, "result_gemm.csv"))
     if gemm:
         print("## Square GEMM\n")
         for row in gemm:
             print(f"- {row['n']}^2 {row['dtype']}: {row['min_s']}s "
                   f"({row['tflops']} TFLOP/s)")
         print()
-    ooc = read_csv(os.path.join(d, "result_ooc_tpu.csv"))
+    ooc = read_csv(os.path.join(d, "result_ooc.csv"))
     if ooc:
         base = {"gram": BOP_BASELINE, "lr": LR_BASELINE}
-        print("## Out-of-core rows (N beyond one chip's HBM)\n")
+        print("## Out-of-core rows\n")
         for row in ooc:
             n, t = int(row["N"]), float(row["seconds"])
             ref = base.get(row["op"], {}).get(n)

@@ -1,5 +1,5 @@
-"""CholeskyQR2 path tests — force the TPU-default TSQR method on CPU and
-check it against the same oracles as the Householder tree."""
+"""CholeskyQR2 path tests — force the accelerator-default TSQR method on
+CPU and check it against the same oracles as the Householder tree."""
 
 import numpy as np
 import pytest

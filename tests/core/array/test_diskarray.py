@@ -386,8 +386,8 @@ def test_linear_regression_ooc_rejects_mismatched_y(app_inst, disk_xy):
 
 
 def test_ooc_put_rejects_serial_only_kwargs_on_mesh(app_inst):
-    """Review regression: lane_pad_to/augment_ones are serial-only;
-    mesh callers must get a loud error instead of a silent no-op."""
+    """Review regression: augment_ones is serial-only; mesh callers
+    must get a loud error instead of a silent no-op."""
     import pytest as _pytest
 
     from nums_tpu.core.array.application import ooc_put
@@ -397,10 +397,7 @@ def test_ooc_put_rejects_serial_only_kwargs_on_mesh(app_inst):
     if isinstance(app_inst.backend, MeshBackend):
         with _pytest.raises(ValueError, match="serial-backend only"):
             ooc_put(app_inst.backend, panel, augment_ones=True)
-        with _pytest.raises(ValueError, match="serial-backend only"):
-            ooc_put(app_inst.backend, panel, lane_pad_to=128)
     else:
-        p, nv = ooc_put(
-            app_inst.backend, panel, augment_ones=True, lane_pad_to=8
-        )
-        assert nv == 8 and p.shape == (8, 8)
+        p, nv = ooc_put(app_inst.backend, panel, augment_ones=True)
+        assert nv == 8 and p.shape == (8, 4)
+        np.testing.assert_array_equal(np.asarray(p)[:, -1], 1.0)

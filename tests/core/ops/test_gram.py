@@ -1,7 +1,8 @@
 """Compensated-gram unit tests: both chunk-sum shapes (batched tree /
 scanned Kahan) against a float64 oracle. The real trigger thresholds
 (2^20 rows, 512 MB stack) are monkeypatched down so the CPU suite
-exercises the exact code paths the TPU runs at 2^24x128 and 2.5Mx1000."""
+exercises the exact code paths an accelerator runs at 2^24x128 and
+2.5Mx1000."""
 
 import numpy as np
 import pytest

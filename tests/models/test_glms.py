@@ -138,7 +138,7 @@ def test_exponential(nps_app_inst):
 
 
 def test_fast_glm_matches_blockarray_glm(nps_app_inst):
-    """The fused TPU train step converges to the same solution."""
+    """The fused train step converges to the same solution."""
     from nums_tpu.models.glms import LogisticRegression
     from nums_tpu.models import fast_glm
 

@@ -1,6 +1,6 @@
 """benchmark_bop --interleave: the pure-jax vs BlockArray A/B artifact
-(VERDICT r4 weak #5 — the RESULTS.md dispatch-overhead table must trace
-to a committed CSV; this mode generates it)."""
+(the dispatch-overhead table must trace to a CSV; this mode generates
+it) and --device-resident."""
 
 import csv
 import sys
@@ -47,14 +47,13 @@ def test_interleave_writes_both_paths(tmp_path, app_serial):
         assert float(r["min_s"]) > 0.0
         sweeps = [float(x) for x in r["sweeps_s"].split(";")]
         assert len(sweeps) == 2 and min(sweeps) > 0.0
-        assert r["lane_pad"] in ("0", "1")
+        assert set(r) == {"mode", "N", "d", "path", "median_s", "min_s",
+                          "sweeps_s", "chain"}
 
 
-def test_device_resident_rows_per_route(tmp_path, app_serial, monkeypatch):
-    """--device-resident writes one row per available route with a
-    positive difference-quotient per-iteration time; with the pallas
-    gram forced on (interpret mode on CPU) both routes must appear."""
-    monkeypatch.setenv("NUMS_TPU_PALLAS_GRAM", "1")
+def test_device_resident_rows_per_route(tmp_path, app_serial):
+    """--device-resident writes one XLA row per N with a positive
+    difference-quotient per-iteration time, at the logical width."""
     bop = _bop()
     out = str(tmp_path / "dr.csv")
     rc = bop.main([
@@ -63,22 +62,22 @@ def test_device_resident_rows_per_route(tmp_path, app_serial, monkeypatch):
     ])
     assert rc == 0
     rows = list(csv.DictReader(open(out)))
-    assert [r["route"] for r in rows] == ["xla", "pallas"]
+    assert [r["route"] for r in rows] == ["xla"]
     for r in rows:
         assert r["mode"] == "device_resident"
         assert float(r["t_hi_median_s"]) > 0.0
-        assert int(r["phys_d"]) % 128 == 0
+        assert int(r["phys_d"]) == 128
 
 
 def test_interleave_default_out_is_separate_csv(tmp_path, app_serial,
                                                 monkeypatch):
     """Without --out the interleave rows must land in their own CSV,
-    never schema-polluting result_bop_tpu.csv."""
+    never schema-polluting result_bop.csv."""
     bop = _bop()
     monkeypatch.chdir(tmp_path)
     # keep scripts importable from the new cwd
     rc = bop.main(["--interleave", "--ns", "64", "-d", "8",
                    "--reps", "1", "--chain", "1"])
     assert rc == 0
-    assert (tmp_path / "result_interleave_tpu.csv").exists()
-    assert not (tmp_path / "result_bop_tpu.csv").exists()
+    assert (tmp_path / "result_interleave.csv").exists()
+    assert not (tmp_path / "result_bop.csv").exists()

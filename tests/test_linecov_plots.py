@@ -124,39 +124,76 @@ def test_subprocess_collection_roundtrip(tmp_path):
     assert linecov.merge_subprocess(str(sub_dir), covered2) == 1
 
 
+# Which figure each result CSV feeds (bop and lr always render: their
+# reference series are embedded constants).
+_FIGURE_OF = {
+    "result_bop.csv": "bop.png", "result_lr.csv": "lr.png",
+    "result_tsqr.csv": "tsqr.png", "result_gemm.csv": "gemm.png",
+    "result_ooc.csv": "ooc.png", "result_models.csv": "models.png",
+    "result_interleave.csv": "interleave.png",
+    "result_device_resident.csv": "device_resident.png",
+}
+
+_SAMPLE_CSV = {
+    "result_bop.csv": "N,d,min_s,mean_s,std_s\n125000,1000,0.01,0.011,0.001\n",
+    "result_lr.csv": "N,d,min_s,mean_s,std_s\n125000,1000,0.02,0.021,0.001\n",
+    "result_tsqr.csv": ("op,m,n,min_s\nindirect_tsr,16777216,128,0.05\n"
+                        "direct_tsqr,16777216,128,0.2\n"),
+    "result_gemm.csv": ("n,dtype,min_s,median_s,tflops\n"
+                        "32768,bfloat16,0.1,0.11,700.0\n"),
+    "result_ooc.csv": ("op,N,d,mode,seconds,tflops,note\n"
+                       "gram,5000000,1000,device,0.05,200.0,x\n"
+                       "lr,5000000,1000,device,0.09,110.0,x\n"),
+    "result_models.csv": "model,op,n,d,seconds\ngbdt,fit,1000000,28,1.5\n",
+}
+
+
 def test_plot_all_renders_committed_artifacts(tmp_path, monkeypatch):
+    """Every result CSV committed at the repo root renders its figure
+    (and nothing else appears beyond the always-on bop/lr)."""
     from scripts import plot_all
 
     repo = os.path.join(os.path.dirname(__file__), "..")
+    committed = sorted(f for f in os.listdir(repo) if f in _FIGURE_OF)
     monkeypatch.chdir(repo)
     out = tmp_path / "plots"
     assert plot_all.main(["--out", str(out)]) == 0
     made = sorted(os.listdir(out))
-    assert made == ["bop.png", "device_resident.png", "gemm.png",
-                    "interleave.png", "lr.png", "models.png", "ooc.png",
-                    "pallas_gram.png", "tsqr.png"]
+    assert made == sorted({"bop.png", "lr.png"}
+                          | {_FIGURE_OF[f] for f in committed})
     for f in made:
         assert (out / f).stat().st_size > 10_000  # a real figure
 
 
-def test_plot_all_renders_overhead_artifacts(tmp_path, monkeypatch):
-    """The interleave / device-resident figures render once their CSVs
-    exist (they are produced by the hardware batch, steps 6b/6c)."""
+@pytest.mark.parametrize("name", sorted(_SAMPLE_CSV))
+def test_plot_all_renders_each_result_csv(tmp_path, monkeypatch, name):
+    """A result CSV written into an empty directory renders its figure."""
     from scripts import plot_all
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "result_interleave_tpu.csv").write_text(
-        "mode,N,d,path,median_s,min_s,sweeps_s,chain,lane_pad\n"
-        "interleave,125000,1000,pure_jax,0.0055,0.0054,x,5,1\n"
-        "interleave,125000,1000,blockarray,0.0056,0.0055,x,5,1\n"
+    (tmp_path / name).write_text(_SAMPLE_CSV[name])
+    out = tmp_path / "plots"
+    assert plot_all.main(["--out", str(out)]) == 0
+    fig = out / _FIGURE_OF[name]
+    assert fig.exists() and fig.stat().st_size > 10_000
+
+
+def test_plot_all_renders_overhead_artifacts(tmp_path, monkeypatch):
+    """The interleave / device-resident figures render once their CSVs
+    exist (``benchmark_bop.py --interleave`` / ``--device-resident``)."""
+    from scripts import plot_all
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "result_interleave.csv").write_text(
+        "mode,N,d,path,median_s,min_s,sweeps_s,chain\n"
+        "interleave,125000,1000,pure_jax,0.0055,0.0054,x,5\n"
+        "interleave,125000,1000,blockarray,0.0056,0.0055,x,5\n"
     )
-    (tmp_path / "result_device_resident_tpu.csv").write_text(
+    (tmp_path / "result_device_resident.csv").write_text(
         "mode,N,d,phys_n,phys_d,route,iters_lo,iters_hi,"
         "t_lo_median_s,t_hi_median_s,per_iter_s,reps\n"
-        "device_resident,2500000,1000,2500000,1024,xla,5,20,"
+        "device_resident,2500000,1000,2500000,1000,xla,5,20,"
         "0.2,0.6,0.0265,5\n"
-        "device_resident,2500000,1000,2500000,1024,pallas,5,20,"
-        "0.15,0.4,0.0168,5\n"
     )
     out = tmp_path / "plots"
     assert plot_all.main(["--out", str(out)]) == 0
